@@ -14,4 +14,4 @@ goldens:
 	python -c "import tests.test_goldens as g; g.regenerate()"
 
 viewer:
-	python -m vpt_tpu.cli view --volume sphere:64 --renderer mcm
+	python -m vpt_jax.cli view --volume sphere:64 --renderer mcm

@@ -1,28 +1,23 @@
 """Backward-pass throughput: gradient steps through the differentiable MCM
-estimator (VERDICT r1 missing #3 / BASELINE "forward + backward march
-kernels at HBM speed-of-light").
+estimator (BASELINE: "forward + backward march kernels").
 
 Measures events/s for (a) the forward frame, (b) value_and_grad of an
-image-MSE loss w.r.t. the voxel grid, for two sampler configurations:
+image-MSE loss w.r.t. the voxel grid, for these sampler configurations:
 
 - ``unpacked``: the Scene samples the raw (D, H, W, C) volume — 8 gathers
-  per event forward, 8 scatter-adds per event backward (what fit_mc used
-  before r2).
-- ``packed-in-graph``: the corner table is built from the volume *inside*
-  the differentiated function (pack_corner_volume is a dense stack —
+  per event forward, 8 scatter-adds per event backward.
+- ``packed``: the corner table is built from the volume *inside* the
+  differentiated function (pack_corner_volume is a dense stack —
   differentiable); 1 gather per event forward, 1 scatter-add backward,
-  plus a cheap dense window-sum VJP for the pack itself.
-- ``packed-folded``: the corner table additionally folds F consecutive
-  cells into one wide row so the backward scatter-add stays below the
-  row-count cliff (sampling.scatter_fold_log2; the fit_mc default
-  before r3).
+  plus a dense window-sum VJP for the pack itself.
+- ``folded``: the corner table additionally folds F consecutive cells into
+  one wide row for the backward scatter-add (sampling.scatter_fold_log2;
+  the fit_mc layout).
 - ``twolevelN``: the two-level fold (sampling.take_rows_twolevel) — the
-  table is stored at the fold that fully de-cliffs the scatter (<=2^18
-  rows, NO lane cap) while gathers are served at fold 2^N through a
-  custom-VJP reshape, decoupling the forward's gather layout from the
-  backward's scatter layout (VERDICT r2 #2).
+  table is stored at the scatter's fold while gathers are served at fold
+  2^N through a custom-VJP reshape.
 
-Usage: python benchmarks/backward.py [--platform cpu] [--res 512]
+Usage: python benchmarks/backward.py [--res 512]
 """
 
 from __future__ import annotations
@@ -34,14 +29,13 @@ import time
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 
 def bench(res: int, vol_n: int, steps: int, frames: int, mode: str,
           iters: int = 8) -> dict:
-    from vpt_tpu import sampling, transfer, volume
-    from vpt_tpu.renderers import diff_mc, make_scene
-    from vpt_tpu.renderers import mcm as mcm_mod
+    from vpt_jax import sampling, transfer, volume
+    from vpt_jax.renderers import diff_mc, make_scene
+    from vpt_jax.renderers import mcm as mcm_mod
 
     vol = volume.sphere_volume(vol_n)
     tf = transfer.gray_ramp(alpha_scale=0.8)
@@ -74,17 +68,16 @@ def bench(res: int, vol_n: int, steps: int, frames: int, mode: str,
     bwd = jax.jit(jax.value_and_grad(loss_fn))
     voxels = template.volume
 
-    def run(fn, extract):
-        out = fn(voxels, 0.0)
-        float(np.asarray(extract(out)))   # compile + sync
+    def run(fn):
+        jax.block_until_ready(fn(voxels, 0.0))   # compile + warm
         t0 = time.perf_counter()
         for _ in range(iters):
             out = fn(voxels, 0.0)
-        float(np.asarray(extract(out)))
+        jax.block_until_ready(out)
         return (time.perf_counter() - t0) / iters
 
-    t_fwd = run(fwd, lambda o: o)
-    t_bwd = run(bwd, lambda o: o[0] + jnp.sum(o[1][0, 0, 0]))
+    t_fwd = run(fwd)
+    t_bwd = run(bwd)
     events = res * res * steps * frames
     return {
         "metric": "mcm_grad_events_per_s",
@@ -99,22 +92,15 @@ def bench(res: int, vol_n: int, steps: int, frames: int, mode: str,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--res", type=int, default=512)
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--modes", default="unpacked,packed,folded")
     args = ap.parse_args()
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from vpt_jax.runtime import device
 
-    import os
-    import sys
-    sys.path.insert(0, os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    from bench import probe_backend
-
-    probe_backend()
+    device.enable_compile_cache()
+    device.require_gpu()
     for vol_n in (128, 256):
         for mode in args.modes.split(","):
             print(json.dumps(bench(args.res, vol_n, 8, args.frames,

@@ -1,11 +1,12 @@
-"""Compiled-collective accounting for the sharded paths (VERDICT r1 #10).
+"""Compiled-collective accounting for the sharded paths.
 
-No pod exists in this environment, so the honest proxy for the scaling
-story is what the partitioner actually emits: this script lowers the
-sharded MCM frame, the sharded+halo MCM frame, and the bucketed/monolithic
-gradient train steps on a virtual 8-device CPU mesh and counts the
-collective ops in the optimized HLO (all-reduce, all-gather,
-reduce-scatter, collective-permute, all-to-all).
+What the partitioner emits is the structure of the scaling story: this
+script lowers the sharded MCM frame, the sharded+halo MCM frame, and the
+bucketed/monolithic gradient train steps on a virtual 8-device CPU mesh
+and counts the collective ops in the optimized HLO (all-reduce,
+all-gather, reduce-scatter, collective-permute, all-to-all).  It needs
+no card; timing the same paths is chip_smoke.py --four-cards and
+benchmarks/scaling.py.
 
 Run: XLA_FLAGS=--xla_force_host_platform_device_count=8 \
      python benchmarks/collectives.py
@@ -50,10 +51,10 @@ def count_collectives(compiled) -> dict:
 
 
 def mcm_frame(mesh, shard_volume):
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel import sharded_scene
-    from vpt_tpu.parallel.shard import place_state, shard_render_frame
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel import sharded_scene
+    from vpt_jax.parallel.shard import place_state, shard_render_frame
+    from vpt_jax.renderers import make_scene, mcm
 
     scene = make_scene(volume.sphere_volume(16),
                        transfer.gray_ramp(alpha_scale=1.0))
@@ -73,9 +74,9 @@ def halo_frame(mesh, packed, tracking=False):
     """MCM over a z-slab halo-sharded volume (parallel/halo.py)."""
     import numpy as np
 
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel.halo import sharded_render_frame
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel.halo import sharded_render_frame
+    from vpt_jax.renderers import make_scene, mcm
 
     tf = transfer.gray_ramp(alpha_scale=1.0)
     if tracking:
@@ -97,11 +98,11 @@ def resident_frame(mesh, packed=True):
     """Resident-photon MCM frame (parallel/resident.py): per-round
     collectives are the row all_to_all plus the two small grant
     all_gathers — count them in the optimized HLO."""
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel.resident import (
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel.resident import (
         resident_render_frame, resident_reset,
     )
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax.renderers import make_scene, mcm
 
     scene = make_scene(volume.sphere_volume(16),
                        transfer.gray_ramp(alpha_scale=1.0), pack=packed)
@@ -118,9 +119,9 @@ def train_step(mesh, bucketed):
     import optax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.renderers import eam
-    from vpt_tpu.scene import CameraState, default_camera
+    from vpt_jax import transfer, volume
+    from vpt_jax.renderers import eam
+    from vpt_jax.scene import CameraState, default_camera
 
     optimizer = optax.adam(1e-2)
     vol = volume.sphere_volume(16).data
@@ -136,8 +137,8 @@ def train_step(mesh, bucketed):
     params = eam.Params(slices=16, random=False)
 
     if bucketed:
-        from vpt_tpu.parallel.overlap import bucketed_train_step
-        from vpt_tpu.train import render_eam
+        from vpt_jax.parallel.overlap import bucketed_train_step
+        from vpt_jax.train import render_eam
 
         def loss_of_volume(v, seed):
             pred = render_eam(v, tf, mats, params, seed, 32, 32)
@@ -145,12 +146,12 @@ def train_step(mesh, bucketed):
 
         step = bucketed_train_step(optimizer, loss_of_volume,
                                    num_buckets=4)
-        from vpt_tpu.parallel.overlap import split_volume
+        from vpt_jax.parallel.overlap import split_volume
 
         opt_state = optimizer.init(split_volume(vol, 4))
         lowered = jax.jit(step).lower(vol, opt_state, jnp.float32(0.0))
     else:
-        from vpt_tpu.train import make_train_step
+        from vpt_jax.train import make_train_step
 
         opt_state = optimizer.init({"volume": vol})
         step = make_train_step(optimizer, params=params, height=32,
@@ -161,7 +162,7 @@ def train_step(mesh, bucketed):
 
 
 def main():
-    from vpt_tpu.parallel import make_mesh
+    from vpt_jax.parallel import make_mesh
 
     mesh = make_mesh(8, space=2)
     results = {}

@@ -2,7 +2,7 @@
 
 Loads a fitted 256^3 volume (examples/config3_mcm256.py --save-fit),
 sweeps the visibility threshold tau and the fill domain (log vs linear)
-of vpt_tpu.inpaint.complete_occluded, and reports the truth-bucket MSE
+of vpt_jax.inpaint.complete_occluded, and reports the truth-bucket MSE
 table for each setting — the committed forensics behind the chosen
 --inpaint default.  The completion itself touches no transport, so the
 sweep costs seconds per setting.
@@ -25,13 +25,13 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--fit", required=True)
     ap.add_argument("--extinction", type=float, default=25.0)
     ap.add_argument("--taus", default="0.05,0.1,0.15,0.2,0.3,0.5,1",
-                    help="thresholds to sweep; the r4 sweep measured a "
-                         "broad optimum basin at [0.1, 0.2] (see "
-                         "BENCH_NOTES.md) — masks from a fitted volume "
+                    help="thresholds to sweep; the committed sweep "
+                         "measured a broad optimum basin at [0.1, 0.2] "
+                         "(docs/ARCHITECTURE.md) — masks from a fitted "
+                         "volume "
                          "need tau far below the tau≈1 'optically thick' "
                          "intuition because underfilled cores "
                          "under-report their own occlusion")
@@ -47,13 +47,9 @@ def main():
                          "the mask the true volume would produce)")
     args = ap.parse_args()
 
-    import jax
-
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
     import jax.numpy as jnp
 
-    from vpt_tpu import inpaint, volume
+    from vpt_jax import inpaint, volume
 
     fit = jnp.asarray(np.load(args.fit)["fit"])[..., 0]
     n = fit.shape[0]

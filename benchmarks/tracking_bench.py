@@ -1,17 +1,17 @@
 """Tracking-machine shootout: exact vs cheb-skip vs majorant grid.
 
 Measures events/s AND paths/s per machine on the two scene classes the
-VERDICT r2 policy question names:
+tracking policy has to choose between:
 
 - the dense 512²/128³ headline sphere (gray ramp), in both TF pipelines:
   the float ramp (texel-0 alpha 0.0016 > 0 → nothing is TF-empty → cheb
   declines, policy keeps the exact machine) and the reference's
   SRGB8_ALPHA8 texture semantics (``tf_srgb=True`` — 8-bit alpha rounds
   the near-zero floor to exact 0, the sphere exterior becomes TF-empty),
-- a sparse 256³ ball at extinction 100 (the CT-like regime where the r2
-  majorant grid won 2.3×), comparing all three machines.
+- a sparse 256³ ball at extinction 100 (the CT-like regime, where empty
+  space dominates), comparing all three machines.
 
-Usage: python benchmarks/tracking_bench.py [--platform cpu] [--frames 20]
+Usage: python benchmarks/tracking_bench.py [--frames 20]
 """
 
 from __future__ import annotations
@@ -40,24 +40,22 @@ def sparse_ball(n: int, r: float = 0.15, value: float = 0.9):
 
 def bench(scene, steps: int, frames: int, res: int, extinction: float,
           label: str) -> dict:
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     params = mcm.Params(extinction=extinction, anisotropy=0.3, steps=steps)
     state = mcm.reset(params, res, res, scene)
     frame_fn = jax.jit(mcm.render_frame, donate_argnums=(0,))
     total = jax.jit(lambda s: jnp.sum(s["samples"]))
 
-    def sync(s):
-        return float(np.asarray(total(s)))
-
     state = frame_fn(state, scene, params, jnp.float32(0.1), jnp.int32(1))
-    paths0 = sync(state)
+    paths0 = float(jax.block_until_ready(total(state)))
     t0 = time.perf_counter()
     for i in range(frames):
         state = frame_fn(state, scene, params,
                          jnp.float32(0.2 + 0.001 * i), jnp.int32(i + 2))
-    paths1 = sync(state)
+    jax.block_until_ready(state)
     dt = time.perf_counter() - t0
+    paths1 = float(total(state))
     events = res * res * steps * frames
     row = {
         "config": label,
@@ -72,19 +70,16 @@ def bench(scene, steps: int, frames: int, res: int, extinction: float,
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--frames", type=int, default=20)
     ap.add_argument("--skip-dense", action="store_true")
     ap.add_argument("--skip-sparse", action="store_true")
     args = ap.parse_args()
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    from vpt_jax import transfer, volume
+    from vpt_jax.renderers import make_scene
+    from vpt_jax.runtime import device
 
-    import bench as bench_mod
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.renderers import make_scene
-
-    bench_mod.probe_backend()
+    device.enable_compile_cache()
+    device.require_gpu()
 
     if not args.skip_dense:
         vol = volume.sphere_volume(128)

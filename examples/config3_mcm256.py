@@ -1,10 +1,9 @@
 """BASELINE config 3, end to end: MCM multiple scattering on a 256³ volume,
 voxel-density gradients, ≥1024 spp accumulated targets, recover a perturbed
-volume — coarse-to-fine multiresolution over 10 orbit views (VERDICT r1 #3
-established the estimator; VERDICT r2 #3 asked for actual volume recovery:
-3 views / 16M voxels is too ill-posed, so the fit now ascends 32³ → 64³ →
-128³ → 256³ with trilinear upsampling between stages, each stage descending
-the same full-resolution multi-view targets with per-step stochastic view
+volume — coarse-to-fine multiresolution over 10 orbit views (3 views / 16M
+voxels is too ill-posed, so the fit ascends 32³ → 64³ → 128³ → 256³ with
+trilinear upsampling between stages, each stage descending the same
+full-resolution multi-view targets with per-step stochastic view
 selection).
 
 Pipeline:
@@ -36,7 +35,7 @@ the full multiresolution pipeline):
   choice): at 256³ single-resolution Adam random-walks rarely-visited
   voxels (the r2 measurement), but in the coarse-to-fine schedule every
   coarse-stage voxel is densely constrained, where Adam descends 2×
-  faster than SGD+momentum (BENCH_NOTES "config-3 null space").
+  faster than SGD+momentum (docs/ARCHITECTURE.md "Config-3 null space").
 - **Dual-extinction capture**: at the primary extinction the blob cores
   are optically occluded (a measured gradient null space — core-bucket
   MSE never moves); a second, lower-extinction target set carries core
@@ -47,8 +46,8 @@ the full multiresolution pipeline):
   low-probability decisions) as a biased-but-bounded fallback; not
   needed for this config.
 
-Run (TPU): python examples/config3_mcm256.py
-Quick CPU check: python examples/config3_mcm256.py --platform cpu --quick
+Run: python examples/config3_mcm256.py
+Quick CPU check: JAX_PLATFORMS=cpu python examples/config3_mcm256.py --quick
 """
 
 from __future__ import annotations
@@ -82,7 +81,7 @@ def box_blur(vol, k: int):
 
 
 def _base_params():
-    from vpt_tpu.renderers import mcm as mcm_mod
+    from vpt_jax.renderers import mcm as mcm_mod
 
     return mcm_mod.Params(extinction=25.0, anisotropy=0.2, steps=8)
 
@@ -90,8 +89,8 @@ def _base_params():
 def orbit_cameras(yaws_deg, pitches=None):
     import math
 
-    from vpt_tpu.runtime.animators import OrbitCameraAnimator
-    from vpt_tpu.scene import CameraState, default_camera
+    from vpt_jax.runtime.animators import OrbitCameraAnimator
+    from vpt_jax.scene import CameraState, default_camera
 
     out = []
     for i, yaw in enumerate(yaws_deg):
@@ -117,11 +116,11 @@ _RENDER_JIT = {}
 
 def _frame_fn():
     """One jit wrapper shared by every render_target call — a fresh
-    jax.jit(...) per call would pay the (minutes-long, remote) compile
-    for every target even though the shapes never change."""
+    jax.jit(...) per call would recompile for every target even though
+    the shapes never change."""
     import jax
 
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     if "fn" not in _RENDER_JIT:
         _RENDER_JIT["fn"] = jax.jit(mcm.render_frame, donate_argnums=(0,))
@@ -132,7 +131,7 @@ def render_target(vol, tf, cam, params, res, min_spp, label):
     """Progressive analog MCM until mean samples/pixel >= min_spp."""
     import jax.numpy as jnp
 
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax.renderers import make_scene, mcm
 
     scene = make_scene(vol, tf, camera=cam, pack_dtype=jnp.bfloat16,
                        tf_mxu=True)
@@ -154,7 +153,6 @@ def render_target(vol, tf, cam, params, res, min_spp, label):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--quick", action="store_true",
                     help="64^3 volume / 64^2 images / small budgets (CPU)")
     ap.add_argument("--out", default="examples/config3_gallery.png")
@@ -173,7 +171,7 @@ def main():
                     choices=("none", "tv", "curv", "logcurv", "lap",
                              "loglap"),
                     help="conditioning prior for the occluded-core null "
-                         "space (VERDICT r3 #1): 'tv' = squared forward "
+                         "space: 'tv' = squared forward "
                          "differences (H1 smoothness), 'curv' = squared "
                          "gradient-of-Laplacian (zero on quadratic caps — "
                          "extrapolates the recovered shell into cores "
@@ -206,8 +204,8 @@ def main():
     ap.add_argument("--param", default="raw", choices=("raw", "pyramid"),
                     help="final-stage parametrization: 'pyramid' "
                          "optimizes a Gaussian-pyramid decomposition "
-                         "{32, 64, 128, 256} jointly (VERDICT r3 #1's "
-                         "regularized-parametrization suggestion) — "
+                         "{32, 64, 128, 256} jointly (a regularized "
+                         "parametrization) — "
                          "coarse coefficients aggregate image gradients "
                          "over whole blob neighborhoods, so occluded "
                          "cores inherit coarse structure instead of "
@@ -217,13 +215,13 @@ def main():
                          "forensics")
     ap.add_argument("--inpaint", action="store_true",
                     help="after the fit, complete the optically occluded "
-                         "null space with vpt_tpu.inpaint (6-axis "
+                         "null space with vpt_jax.inpaint (6-axis "
                          "visibility mask at the primary extinction + "
                          "log-domain biharmonic CG solve) — solving the "
                          "prior's Euler-Lagrange equation on the unseen "
                          "set instead of descending it in-loop "
-                         "(benchmarks/prior_flow_probe.py measured why "
-                         "descent cannot fill cores)")
+                         "(docs/ARCHITECTURE.md: why descent cannot fill "
+                         "cores)")
     ap.add_argument("--inpaint-tau", type=float, default=0.15,
                     help="visibility threshold: optical depth above which "
                          "a voxel counts as unobserved.  Default from the "
@@ -243,7 +241,7 @@ def main():
                          "--inpaint-blind protocol supersedes this with "
                          "view-aware visibility at min(exts)")
     ap.add_argument("--inpaint-blind", action="store_true",
-                    help="truth-free completion protocol (VERDICT r4 #2): "
+                    help="truth-free completion protocol: "
                          "fit WITHOUT the --heldout views, compute the "
                          "view-aware visibility field along the actual "
                          "fit-view capture rays (--blind-ext; default "
@@ -259,7 +257,7 @@ def main():
                          "r5 first run measured that a FITTED volume "
                          "under-reports its own occlusion on the "
                          "view-aware field exactly as it did on the "
-                         "proxy (BENCH_NOTES r4): at min(exts) the field "
+                         "proxy: at min(exts) the field "
                          "barely crosses 0.25 anywhere, so candidates "
                          "must span the under-reporting regime — the "
                          "held-out veto, not the physical tau=1 "
@@ -292,17 +290,15 @@ def main():
 
     import jax
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
     import dataclasses
 
     import jax.numpy as jnp
     import optax
 
-    from vpt_tpu import sampling, tonemap, transfer, volume
-    from vpt_tpu.io.image import write_png
-    from vpt_tpu.renderers import diff_mc, make_scene
-    from vpt_tpu.renderers import mcm as mcm_mod
+    from vpt_jax import sampling, tonemap, transfer, volume
+    from vpt_jax.io.image import write_png
+    from vpt_jax.renderers import diff_mc, make_scene
+    from vpt_jax.renderers import mcm as mcm_mod
 
     if args.tv > 0.0 and args.prior == "none":
         args.prior, args.prior_w = "tv", args.tv
@@ -321,7 +317,7 @@ def main():
     # - the aux (lower) extinction penetrates the cores the primary one
     #   occludes (measured: at ext 25 the cores are a gradient null space;
     #   at ext 5 their image signal is ~30x the pixel noise but localized
-    #   — BENCH_NOTES.md "config-3 null space")
+    #   — docs/ARCHITECTURE.md "Config-3 null space")
     if args.quick:
         stages = [(16, 6, 2, 3e-3, False), (n, args.steps or 6, 2,
                    1e-3, True)]
@@ -421,7 +417,7 @@ def main():
                 # empty space stays penalty-free).
                 # 'lap'/'loglap': biharmonic mean(lap^2) — one order
                 # softer, which is what lets Adam's per-voxel normalized
-                # steps actually descend it (benchmarks/prior_flow_probe).
+                # steps actually descend it (docs/ARCHITECTURE.md).
                 if args.prior in ("logcurv", "loglap"):
                     v = jnp.log(jnp.maximum(v, 0.01))
                 lap = sum(jnp.roll(v, -1, a_) + jnp.roll(v, 1, a_)
@@ -436,7 +432,7 @@ def main():
 
     def bucket_table(fit_vol, label):
         """Voxel MSE by truth-density bucket (the r3 null-space probe,
-        BENCH_NOTES 'config-3 null space' — now a committed artifact)."""
+        docs/ARCHITECTURE.md "Config-3 null space")."""
         edges = (0.0, 0.05, 0.3, 0.7, 1.0000001)
         t = np.asarray(truth[..., 0])
         fv = np.asarray(fit_vol[..., 0])
@@ -589,12 +585,12 @@ def main():
 
     inpaint_fields = {}
     if args.inpaint_blind:
-        from vpt_tpu import inpaint as inpaint_mod
+        from vpt_jax import inpaint as inpaint_mod
         t_inp = time.perf_counter()
         # view-aware visibility: optical depth along the ACTUAL fit-view
         # capture rays, at the PRIMARY capture extinction by default —
-        # the r5 first run measured the min(exts) field too shallow on
-        # fitted volumes (BENCH_NOTES "gone truth-blind"); the field is
+        # the min(exts) field measured too shallow on fitted volumes
+        # (docs/ARCHITECTURE.md "Occlusion completion"); the field is
         # extinction-linear, so the choice only rescales the tau axis
         # the blind sweep searches
         cam_pos = jnp.stack([inpaint_mod.camera_position(
@@ -638,7 +634,7 @@ def main():
         buckets_done = bucket_table(vol_fit, "blind-inpaint")
         inpaint_fields["inpaint_buckets"] = buckets_done
     elif args.inpaint:
-        from vpt_tpu import inpaint as inpaint_mod
+        from vpt_jax import inpaint as inpaint_mod
         t_inp = time.perf_counter()
         filled, unseen = inpaint_mod.complete_occluded(
             vol_fit[..., 0], extinction=exts[0], tau=args.inpaint_tau)

@@ -1,26 +1,21 @@
-"""BASELINE config 4: multi-host MCM over a spatially sharded volume with
-overlapped gradient all-reduce (`BASELINE.json configs[4]`: 512^3 volume,
-1024^2 image, v5p-16).
+"""BASELINE config 4: MCM over a spatially sharded volume with overlapped
+gradient all-reduce (`BASELINE.json configs[4]`: 512^3 volume, 1024^2
+image).
 
-The full-scale run needs a pod this environment does not have, so the
-script runs the REAL multi-chip program — halo-sharded slabs over the
+The script runs the multi-device program — halo-sharded slabs over the
 mesh's ``space`` axis, pixel rows auto-sharded over ``data``, sharded
 voxel gradients with halo-plane exchange and per-bucket (overlappable)
 collectives (parallel/halo_grad.py) — at structurally identical reduced
 shapes on whatever devices exist, and prints the compiled-HLO collective
-counts that evidence the communication structure.  Pass ``--full`` on a
-pod for the config's stated shapes.
+counts that evidence the communication structure.  Pass ``--full`` for
+the config's stated shapes.
 
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python examples/config4_pod512.py --platform cpu
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
+        python examples/config4_pod512.py
 
-Full-scale launch (v5p-16, 8 chips, per BASELINE.json):
-    python examples/config4_pod512.py --full          # 512^3, 1024^2
-with jax.distributed initialized by the runtime (parallel/distributed.py);
-memory: 512^3 f32 slabs = 64 MB/chip + 8x corner tables = 576 MB/chip of
-the ~95 GB v5p HBM — the spatial sharding exists for the 2048^3+ regime
-and for keeping the 16M-row gather tables per-slab (BENCH_NOTES "256^3
-gather floor": slab-local tables re-enter the fast gather regime).
+Full scale (512^3, 1024^2), on the cards of one host or with
+jax.distributed initialized (parallel/distributed.py):
+    python examples/config4_pod512.py --full
 """
 
 from __future__ import annotations
@@ -49,32 +44,26 @@ def count_collectives(compiled) -> dict:
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--full", action="store_true",
-                    help="config-4 stated shapes (512^3, 1024^2) — pod")
+                    help="config-4 stated shapes (512^3, 1024^2)")
     ap.add_argument("--spp", type=int, default=32,
                     help="progressive samples/pixel for the forward phase")
     ap.add_argument("--fit-steps", type=int, default=4)
     ap.add_argument("--buckets", type=int, default=4)
     args = ap.parse_args()
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
-
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel import make_mesh
-    from vpt_tpu.parallel.distributed import initialize, topology_summary
-    from vpt_tpu.parallel.halo import sharded_render_frame
-    from vpt_tpu.parallel.halo_grad import (
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel import make_mesh
+    from vpt_jax.parallel.distributed import initialize, topology_summary
+    from vpt_jax.parallel.halo import sharded_render_frame
+    from vpt_jax.parallel.halo_grad import (
         make_sharded_grad, place_slabs, rehalo,
     )
-    from vpt_tpu.parallel.shard import place_state
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax.parallel.shard import place_state
+    from vpt_jax.renderers import make_scene, mcm
 
     initialize()
     print(topology_summary())

@@ -5,7 +5,7 @@ ground-truth volume with the differentiable ISO renderer, then optimize a
 perturbed volume so its isosurface reproduces that depth — gradients flow
 through the soft first-crossing distribution (renderers/diff_iso.py).
 
-Runs on CPU in ~a minute:
+Runs in about a minute on the CPU (JAX_PLATFORMS=cpu):
     python examples/depth_fit_demo.py
 """
 
@@ -15,15 +15,12 @@ import sys
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402
-
-jax.config.update("jax_platforms", "cpu")
-
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 import optax  # noqa: E402
 
-from vpt_tpu import transfer, volume  # noqa: E402
-from vpt_tpu.renderers import diff_iso, make_scene  # noqa: E402
+from vpt_jax import transfer, volume  # noqa: E402
+from vpt_jax.renderers import diff_iso, make_scene  # noqa: E402
 
 
 def main():

@@ -1,8 +1,8 @@
 """Multi-device demo: pixel-sharded MCM + halo-sharded volume.
 
-Runs on real chips or a virtual CPU mesh:
-    XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python examples/distributed_demo.py --platform cpu
+Runs on the cards of one host or a virtual CPU mesh:
+    XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
+        python examples/distributed_demo.py
 """
 
 import argparse
@@ -17,23 +17,17 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args()
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
-
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel import make_mesh, sharded_scene
-    from vpt_tpu.parallel.distributed import initialize, topology_summary
-    from vpt_tpu.parallel.halo import sharded_render_frame
-    from vpt_tpu.parallel.shard import place_state, shard_render_frame
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel import make_mesh, sharded_scene
+    from vpt_jax.parallel.distributed import initialize, topology_summary
+    from vpt_jax.parallel.halo import sharded_render_frame
+    from vpt_jax.parallel.shard import place_state, shard_render_frame
+    from vpt_jax.renderers import make_scene, mcm
 
     initialize()  # multi-host when a coordinator is configured
     print(topology_summary())

@@ -1,6 +1,6 @@
 """Inverse rendering demo: reconstruct a volume from three orbit views.
 
-    python examples/inverse_demo.py [--platform cpu]
+    python examples/inverse_demo.py
 """
 
 import argparse
@@ -15,23 +15,17 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--grid", type=int, default=16)
     ap.add_argument("--steps", type=int, default=150)
     args = ap.parse_args()
-    if args.platform:
-        import jax
-
-        jax.config.update("jax_platforms", args.platform)
-
     import jax.numpy as jnp
     import numpy as np
 
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.renderers import eam
-    from vpt_tpu.runtime.animators import OrbitCameraAnimator
-    from vpt_tpu.scene import CameraState, default_camera
-    from vpt_tpu.train import fit, render_eam
+    from vpt_jax import transfer, volume
+    from vpt_jax.renderers import eam
+    from vpt_jax.runtime.animators import OrbitCameraAnimator
+    from vpt_jax.scene import CameraState, default_camera
+    from vpt_jax.train import fit, render_eam
 
     tf = transfer.gray_ramp(alpha_scale=1.0)
     params = eam.Params(slices=32, random=False)

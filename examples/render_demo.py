@@ -1,6 +1,6 @@
 """Render every renderer on a synthetic scene and write a montage.
 
-    python examples/render_demo.py [--platform cpu] [--out demo.png]
+    python examples/render_demo.py [--out demo.png]
 """
 
 import argparse
@@ -17,19 +17,13 @@ import numpy as np
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--platform", default=None)
     ap.add_argument("--out", default="demo.png")
     ap.add_argument("--resolution", type=int, default=192)
     args = ap.parse_args()
-    if args.platform:
-        import jax
 
-        jax.config.update("jax_platforms", args.platform)
-
-    from PIL import Image
-
-    from vpt_tpu import tonemap, transfer, volume
-    from vpt_tpu.renderers import factory, make_renderer, make_scene
+    from vpt_jax import tonemap, transfer, volume
+    from vpt_jax.io.image import write_png
+    from vpt_jax.renderers import factory, make_renderer, make_scene
 
     scene = make_scene(volume.blobs_volume(48, seed=3),
                        transfer.gray_ramp(alpha_scale=1.0))
@@ -43,7 +37,7 @@ def main():
         print(f"{key} done")
     sheet = np.concatenate([np.concatenate(panels[:4], axis=1),
                             np.concatenate(panels[4:], axis=1)], axis=0)
-    Image.fromarray((sheet * 255).astype(np.uint8)).save(args.out)
+    write_png(args.out, sheet, flip=False)
     print(f"wrote {args.out}")
 
 

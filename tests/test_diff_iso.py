@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.renderers import diff_iso, iso, make_scene
+from vpt_jax import transfer, volume
+from vpt_jax.renderers import diff_iso, iso, make_scene
 
 
 @pytest.fixture(scope="module")

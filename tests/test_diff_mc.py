@@ -6,8 +6,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vpt_tpu import sampling, volume
-from vpt_tpu.renderers import diff_mc, make_scene, mcm, mcs
+from vpt_jax import sampling, volume
+from vpt_jax.renderers import diff_mc, make_scene, mcm, mcs
 
 
 def _absorbing_scene(alpha):
@@ -138,7 +138,7 @@ def test_diff_mcs_value_matches_analog():
                     jnp.zeros((2, 2, 4), jnp.float32)
                     .at[..., 3].set(0.5).at[..., :3].set(0.7), pack=False)
     params = mcs.Params(extinction=5.0)
-    from vpt_tpu.renderers.mcs import generate as analog_generate
+    from vpt_jax.renderers.mcs import generate as analog_generate
     a = analog_generate(sc, params, jnp.float32(0.3), 8, 8)
     d = diff_mc.mcs_generate(sc, params, jnp.float32(0.3), 8, 8)
     assert np.allclose(np.asarray(a), np.asarray(d), atol=1e-5)
@@ -151,7 +151,7 @@ def test_packed_in_graph_gradients_match_unpacked():
     import dataclasses
 
     vol = volume.sphere_volume(8)
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     tf = transfer.gray_ramp(alpha_scale=0.8)
     template = make_scene(vol, tf, pack=False)
     params = mcm.Params(extinction=10.0, steps=8)
@@ -181,7 +181,7 @@ def test_folded_in_graph_gradients_match_unpacked():
     import dataclasses
 
     vol = volume.sphere_volume(8)
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     tf = transfer.gray_ramp(alpha_scale=0.8)
     template = make_scene(vol, tf, pack=False)
     params = mcm.Params(extinction=10.0, steps=8)

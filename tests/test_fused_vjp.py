@@ -1,8 +1,7 @@
 """Fused select+lerp VJP for the packed volume sampler
 (sampling._select_trilerp, Scene(fused_vjp=True)).
 
-Pins the opt-in's contract (VERDICT r3 #3 — closing the backward-pass
-accounting at 256³):
+Pins the opt-in's contract:
 
 - forward values are BIT-IDENTICAL to the plain packed path (same select,
   same lerp chain) at every fold layout;
@@ -25,9 +24,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpt_tpu import sampling, transfer, volume
-from vpt_tpu.renderers import diff_mc, make_scene
-from vpt_tpu.renderers import mcm as mcm_mod
+from vpt_jax import sampling, transfer, volume
+from vpt_jax.renderers import diff_mc, make_scene
+from vpt_jax.renderers import mcm as mcm_mod
 
 
 def _positions(n=257, seed=0):

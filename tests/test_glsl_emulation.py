@@ -5,10 +5,9 @@ EAMRenderer.glsl:52-80, MIPRenderer.glsl:51-72, ISORenderer.glsl:52-76,
 DepthRenderer.glsl:53-79, MCSRenderer.glsl:59-105, DOSRenderer.glsl:56-82,
 LAORenderer.glsl:97-191, MCMRenderer.glsl:116-171 — executed exactly as a
 fragment invocation would run (sequential march, scalar accumulators, same
-RNG chain), checked against the vectorized TPU machines at ≤1e-4 on EVERY
-pixel of the frame (VERDICT r2 #4; r1's version spot-checked 4 pixels).
-Every marcher — EAM/MIP/ISO/Depth/DOS — and the flagship MCM run at
-33² (VERDICT r3 #5, r4 #7); LAO runs at the renderer's own defaults
+RNG chain), checked against the vectorized machines at ≤1e-4 on EVERY
+pixel of the frame.  Every marcher — EAM/MIP/ISO/Depth/DOS — and the
+flagship MCM run at 33²; LAO runs at the renderer's own defaults
 (64 slices, 20-step AO rays).  Progressive accumulation state is covered for every
 stateful renderer (MCM photon state over 3 frames, DOS sweep state over
 3 frames, MCS incremental-mean integration over 3 frames) and the
@@ -19,7 +18,7 @@ fetches (LINEAR + CLAMP_TO_EDGE), so the oracle shares no code with the
 vectorized machines.
 
 One deliberate deviation mirrored here: the GLSL loops accumulate
-``t += uStepSize`` while the TPU machines evaluate the equivalent schedule
+``t += uStepSize`` while the vectorized machines evaluate the equivalent schedule
 ``t0 + k·step`` (value-equal in exact arithmetic; the schedule form avoids
 carried float error), so the emulation uses the schedule form too.
 """
@@ -28,8 +27,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import sampling, transfer, volume
-from vpt_tpu.renderers import make_scene
+from vpt_jax import sampling, transfer, volume
+from vpt_jax.renderers import make_scene
 
 
 # ---------------------------------------------------------------------------
@@ -102,7 +101,7 @@ def _frame_offset(seed):
 
 N = 9
 ALL_PIXELS = list(np.ndindex(N, N))
-# the wide frame (VERDICT r3 #5): EAM and MCM — the march archetype and
+# the wide frame: EAM and MCM — the march archetype and
 # the flagship — run their oracles at 33² (13.4× the ray diversity of 9²)
 N_WIDE = 33
 WIDE_PIXELS = list(np.ndindex(N_WIDE, N_WIDE))
@@ -152,7 +151,7 @@ class Rays:
 
 
 def test_eam_matches_sequential_emulation(sc):
-    from vpt_tpu.renderers import eam
+    from vpt_jax.renderers import eam
 
     params = eam.Params(extinction=60.0, slices=16, random=True)
     seed = np.float32(0.42)
@@ -184,7 +183,7 @@ def test_eam_matches_sequential_emulation(sc):
 
 
 def test_mip_matches_sequential_emulation(sc):
-    from vpt_tpu.renderers import mip
+    from vpt_jax.renderers import mip
 
     params = mip.Params(steps=16)
     seed = np.float32(0.13)
@@ -209,7 +208,7 @@ def test_mip_matches_sequential_emulation(sc):
 
 
 def test_iso_matches_sequential_emulation(sc):
-    from vpt_tpu.renderers import iso
+    from vpt_jax.renderers import iso
 
     params = iso.Params(isovalue=0.5, steps=16)
     seed = np.float32(0.77)
@@ -233,7 +232,7 @@ def test_iso_matches_sequential_emulation(sc):
 
 
 def test_depth_matches_sequential_emulation(sc):
-    from vpt_tpu.renderers import depth
+    from vpt_jax.renderers import depth
 
     params = depth.Params(extinction=120.0, slices=16, threshold=0.1,
                           random=False)
@@ -344,7 +343,7 @@ def test_mcs_matches_sequential_emulation(sc):
     """The while_loop delta-tracking machine must reproduce a per-pixel
     sequential GLSL execution (draw-count semantics in
     _emulate_mcs_pixel's docstring)."""
-    from vpt_tpu.renderers import mcs
+    from vpt_jax.renderers import mcs
 
     ext = np.float32(40.0)
     params = mcs.Params(extinction=float(ext))
@@ -363,9 +362,8 @@ def test_mcs_progressive_integrate_matches_emulation(sc):
     """MCS integrate (MCSRenderer.glsl:173-177 / mcs.render_frame): the
     accumulator advances by the incremental mean acc += (frame − acc)/n
     across THREE progressive frames — emulated per pixel in float32 with
-    the same update order (VERDICT r3 #5: MCS previously covered
-    ``generate`` only)."""
-    from vpt_tpu.renderers import mcs
+    the same update order."""
+    from vpt_jax.renderers import mcs
 
     ext = np.float32(40.0)
     params = mcs.Params(extinction=float(ext))
@@ -417,7 +415,7 @@ def test_dos_matches_sequential_emulation(sc):
     occlusion buffer, then advance the occlusion buffer as the mean of the
     disk taps times the slice transmittance — exactly the ping-pong order
     of the reference (occlusion reads the *previous* buffer)."""
-    from vpt_tpu.renderers import dos
+    from vpt_jax.renderers import dos
 
     params = dos.Params(extinction=60.0, aperture=30.0, steps=10, slices=24,
                         samples=4)
@@ -501,11 +499,11 @@ def test_lao_matches_sequential_emulation(sc):
     carried (non-reset) inner accumulator, and the stochastic soft-shadow
     term — all driven by the reference's stateless ``rand`` hash, so the
     emulation is deterministic."""
-    from vpt_tpu import rng
-    from vpt_tpu.renderers import lao
+    from vpt_jax import rng
+    from vpt_jax.renderers import lao
 
-    # the renderer's own defaults (VERDICT r3 #5: "run the LAO oracle
-    # nearer defaults"): slices=64, lao_step_size=0.05 (20 AO ray steps),
+    # the renderer's own defaults: slices=64, lao_step_size=0.05 (20 AO
+    # ray steps),
     # num_lao_samples=1, num_shadow_samples=10
     params = lao.Params(extinction=80.0)
     frame = np.asarray(lao.generate(sc, params, jnp.float32(0.0), N, N))
@@ -607,7 +605,7 @@ def test_mcm_matches_sequential_emulation_full_frame(sc):
     progressive frames: the photon state (position/direction/bounces/
     transmittance) and the Welford radiance/samples accumulators must carry
     across frames exactly as the 4×RGBA32F MRT ping-pong does."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     params = mcm.Params(extinction=50.0, anisotropy=0.0, max_bounces=8,
                         steps=8)
@@ -718,7 +716,7 @@ def test_eam_srgb_matches_sequential_emulation():
     """The ``tf_srgb`` GL-texture mode must march through the quantized +
     sRGB-decoded TF exactly: the emulation applies the same conversion to
     its numpy TF copy and re-runs the EAM oracle on every pixel."""
-    from vpt_tpu.renderers import eam
+    from vpt_jax.renderers import eam
 
     sc_srgb = make_scene(volume.sphere_volume(16),
                          transfer.gray_ramp(alpha_scale=0.9), tf_srgb=True)

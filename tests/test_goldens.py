@@ -15,8 +15,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.renderers import MODULES, make_renderer, make_scene
+from vpt_jax import transfer, volume
+from vpt_jax.renderers import MODULES, make_renderer, make_scene
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 RES = 48
@@ -52,7 +52,7 @@ def test_matches_golden(key):
 def test_matches_golden_tf_srgb():
     """Pin the reference-GL-semantics mode (SRGB8_ALPHA8 TF texture:
     8-bit quantize + sRGB decode, transfer.to_gl_texture) — the tf_srgb
-    compute path must stay bit-stable too (VERDICT r1 missing #2)."""
+    compute path must stay bit-stable too."""
     path = GOLDEN_DIR / "eam_srgb.npz"
     if not path.exists():
         pytest.skip(f"golden {path} missing — run regenerate")

@@ -39,9 +39,9 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from vpt_tpu import rng as vrng, sampling, transfer, volume
-from vpt_tpu.renderers import diff_mc, make_scene, mcm, mcs
-from vpt_tpu.renderers import mcm as mcm_mod
+from vpt_jax import rng as vrng, sampling, transfer, volume
+from vpt_jax.renderers import diff_mc, make_scene, mcm, mcs
+from vpt_jax.renderers import mcm as mcm_mod
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.parallel import make_mesh
-from vpt_tpu.parallel.halo import (
+from vpt_jax import transfer, volume
+from vpt_jax.parallel import make_mesh
+from vpt_jax.parallel.halo import (
     HaloScene, shard_volume_with_halo, sharded_render_frame,
 )
-from vpt_tpu.parallel.shard import place_state
-from vpt_tpu.renderers import eam, make_scene, mcm
+from vpt_jax.parallel.shard import place_state
+from vpt_jax.renderers import eam, make_scene, mcm
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")
@@ -74,7 +74,7 @@ def test_halo_mcm_matches_replicated(scene):
 def test_halo_scene_sampler_matches_dense(scene):
     """Single-process check of the ownership-masked trilinear math itself
     (no mesh): emulate the psum by summing each slab's contribution."""
-    from vpt_tpu import sampling
+    from vpt_jax import sampling
 
     num_slabs = 4
     slabs = shard_volume_with_halo(scene.volume, num_slabs)
@@ -99,7 +99,7 @@ def test_halo_scene_sampler_matches_dense(scene):
         i0 = jnp.clip(jnp.floor(u).astype(jnp.int32), 0,
                       jnp.array([w - 1, h - 1, d - 1], jnp.int32))
         owner = jnp.clip(i0[..., 2] // ds, 0, num_slabs - 1)
-        import vpt_tpu.parallel.halo as halo_mod
+        import vpt_jax.parallel.halo as halo_mod
         orig = halo_mod.lax.psum
         halo_mod.lax.psum = lambda x, axis: x
         try:
@@ -114,7 +114,7 @@ def test_halo_scene_sampler_matches_dense(scene):
 
 @pytest.mark.parametrize("key", ["mip", "iso", "depth"])
 def test_halo_march_renderers_match(scene, key):
-    from vpt_tpu.renderers import factory
+    from vpt_jax.renderers import factory
 
     module = factory.get_module(key)
     mesh = make_mesh(8, space=2)

@@ -5,8 +5,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import volume as vol_mod
-from vpt_tpu.io import (
+from vpt_jax import volume as vol_mod
+from vpt_jax.io import (
     BVPReader, BytesLoader, FileLoader, HTTPLoader, RAWReader, ZipRangeReader,
     load_volume, make_loader, read_image, write_bvp, write_png,
 )
@@ -89,7 +89,7 @@ def test_bvp_roundtrip(tmp_path):
 def test_bvp_over_http_range_server(tmp_path):
     """Full streaming path: BVP archive served over HTTP with Range
     requests (the AjaxLoader → server-node parity pair)."""
-    from vpt_tpu.io.server import serve_background
+    from vpt_jax.io.server import serve_background
 
     src = vol_mod.blobs_volume(8, seed=3)
     write_bvp(tmp_path / "vol.bvp", src)
@@ -113,7 +113,7 @@ def test_png_roundtrip(tmp_path):
 
 
 def test_bvp_multi_modality(tmp_path):
-    from vpt_tpu.io.readers import list_modalities
+    from vpt_jax.io.readers import list_modalities
 
     ct = vol_mod.sphere_volume(8)
     pet = vol_mod.blobs_volume(8, seed=5)

@@ -1,4 +1,4 @@
-"""LAO baked-gradient fast mode (VERDICT r2 #6).
+"""LAO baked-gradient fast mode.
 
 Contract (the pack_dtype=bf16 pattern: exact default, validated opt-in
 fast mode): the baked |∇| channel equals the in-shader central-difference
@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpt_tpu import sampling, transfer, volume
-from vpt_tpu.renderers import lao, make_scene
+from vpt_jax import sampling, transfer, volume
+from vpt_jax.renderers import lao, make_scene
 
 
 @pytest.fixture(scope="module")

@@ -1,5 +1,5 @@
 """Occupied-interval march clamp (make_scene(march_clamp=True)): the
-opt-in empty-space acceleration for the march renderers (VERDICT r3 #6),
+opt-in empty-space acceleration for the march renderers,
 validated against the exact machine the way pack_dtype=bf16 is — exact
 no-op on dense scenes, quadrature-equivalent on sparse ones."""
 
@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import skipgrid, transfer, volume
-from vpt_tpu.renderers import depth, eam, make_scene, mip
+from vpt_jax import skipgrid, transfer, volume
+from vpt_jax.renderers import depth, eam, make_scene, mip
 
 
 def _sparse_tf():
@@ -141,7 +141,7 @@ def test_depth_clamp_matches_exact(scenes):
 
 
 def test_iso_value_aabb_threshold_tightens():
-    """The value-threshold box (VERDICT r4 #5) must shrink as the alpha
+    """The value-threshold box must shrink as the alpha
     floor rises: a radially decaying ball reaches high alpha only near
     its center."""
     n = 32
@@ -165,7 +165,7 @@ def test_iso_clamp_matches_exact(scenes):
     """ISO under march_clamp: same hit classification and hit positions
     as the exact machine at a high step count (both quantize the crossing
     by their own backward step)."""
-    from vpt_tpu.renderers import iso
+    from vpt_jax.renderers import iso
 
     exact, clamp = scenes
     h = w = 24
@@ -183,7 +183,7 @@ def test_iso_clamp_zero_isovalue_falls_back_exact(scenes):
     """isovalue ≤ 0 makes every sample a hit — the clamp box is NOT
     hit-free there, so the in-graph guard must fall back to the full
     segment bitwise."""
-    from vpt_tpu.renderers import iso
+    from vpt_jax.renderers import iso
 
     exact, clamp = scenes
     h = w = 24
@@ -196,7 +196,7 @@ def test_iso_clamp_zero_isovalue_falls_back_exact(scenes):
 def test_iso_tighter_box_guarded_by_floor():
     """iso_clamp_min builds the tighter box; below the floor the machine
     falls back to the occupied box (still exact for isovalue > 0)."""
-    from vpt_tpu.renderers import iso
+    from vpt_jax.renderers import iso
 
     sc0 = make_scene(_ball(), _sparse_tf())
     sc1 = make_scene(_ball(), _sparse_tf(), march_clamp=True,

@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from vpt_tpu import math3d as m4
-from vpt_tpu import scene
+from vpt_jax import math3d as m4
+from vpt_jax import scene
 
 
 def test_perspective_matches_gl():

@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import environment, sampling, transfer, volume
-from vpt_tpu.renderers import MODULES, make_renderer, make_scene
+from vpt_jax import environment, sampling, transfer, volume
+from vpt_jax.renderers import MODULES, make_renderer, make_scene
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +62,7 @@ def test_eam_homogeneous_analytic():
     tf = np.zeros((2, 256, 4), np.float32)
     tf[..., :3] = 1.0
     tf[..., 3] = 0.5
-    from vpt_tpu.renderers import eam
+    from vpt_jax.renderers import eam
     sc = make_scene(vol, jnp.asarray(tf))
     params = eam.Params(extinction=100.0, slices=64, random=False)
     frame = np.asarray(eam.generate(sc, params, jnp.float32(0.0), 65, 65))
@@ -83,7 +83,7 @@ def test_eam_homogeneous_analytic():
 
 
 def test_eam_running_mean(scene64):
-    from vpt_tpu.renderers import eam
+    from vpt_jax.renderers import eam
     params = eam.Params()
     state = eam.reset(params, 16, 16)
     f1 = eam.generate(scene64, params, jnp.float32(0.1), 16, 16)
@@ -111,7 +111,7 @@ def test_iso_hit_depth(scene64):
 
 
 def test_iso_integrate_keeps_nearer():
-    from vpt_tpu.renderers import iso
+    from vpt_jax.renderers import iso
     a = jnp.full((1, 1, 4), -1.0)
     f = jnp.asarray(np.array([[[0.5, 0.5, 0.5, 0.4]]], np.float32))
     out = iso.render_frame.__wrapped__ if hasattr(iso.render_frame, "__wrapped__") else None
@@ -176,7 +176,7 @@ def test_mcm_matches_sequential_emulation():
     """The vectorized event machine must reproduce a per-pixel *sequential*
     GLSL-style execution: same RNG chain, same branch outcomes (MCM
     integrate, MCMRenderer.glsl:129-166)."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     n = 4
     vol = volume.sphere_volume(8)
@@ -290,7 +290,7 @@ def test_mcm_homogeneous_unbiased():
     either escape (radiance=env=1) or are absorbed (0); the per-pixel mean
     estimates beam transmittance along each pixel's ray through the cube.
     For the center pixel that's roughly exp(-sigma*L)."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     n = 9
     vol = volume.Volume(jnp.ones((8, 8, 8, 1), jnp.float32))
@@ -307,7 +307,7 @@ def test_mcm_homogeneous_unbiased():
 
 
 def test_static_param_changes_recompile_cleanly(scene64):
-    from vpt_tpu.renderers import eam
+    from vpt_jax.renderers import eam
     p1 = eam.Params(slices=16)
     p2 = eam.Params(slices=32)
     f1 = eam.generate(scene64, p1, jnp.float32(0.0), 8, 8)
@@ -319,7 +319,7 @@ def test_static_param_changes_recompile_cleanly(scene64):
 def test_lao_num_samples_changes_output(scene64):
     """The reference's carried (non-reset) LAO accumulator makes N>1 differ
     from N=1 (LAORenderer.glsl:136-150)."""
-    from vpt_tpu.renderers import lao
+    from vpt_jax.renderers import lao
 
     p1 = lao.Params(num_lao_samples=1)
     p4 = lao.Params(num_lao_samples=4)
@@ -332,7 +332,7 @@ def test_dos_shifted_taps_match_gather_sampler():
     """The gather-free shifted-bilinear occlusion taps must match per-tap
     sample_texture2d fetches (including CLAMP_TO_EDGE at the borders and
     large offsets that clip whole rows)."""
-    from vpt_tpu.renderers import dos
+    from vpt_jax.renderers import dos
 
     rng_np = np.random.default_rng(4)
     h = w = 24

@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.parallel import make_mesh
-from vpt_tpu.parallel.halo import HaloScene
-from vpt_tpu.parallel.resident import (
+from vpt_jax import transfer, volume
+from vpt_jax.parallel import make_mesh
+from vpt_jax.parallel.halo import HaloScene
+from vpt_jax.parallel.resident import (
     assemble, resident_render_frame, resident_reset, slab_owner,
 )
-from vpt_tpu.renderers import make_scene, mcm
+from vpt_jax.renderers import make_scene, mcm
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices")

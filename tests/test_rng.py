@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from vpt_tpu import rng
+from vpt_jax import rng
 
 
 def ref_pcg(x):

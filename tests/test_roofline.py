@@ -1,6 +1,5 @@
-"""Unit tests for the roofline traffic model and the v5p pod projection
-arithmetic (VERDICT r3 #2: 'docs/SCALING.md commits the model with a unit
-test on its arithmetic')."""
+"""Unit tests for the roofline traffic model and roofline field
+arithmetic (benchmarks/roofline.py)."""
 
 import os
 import sys
@@ -12,41 +11,9 @@ import pytest
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from benchmarks import projection, roofline  # noqa: E402
-from vpt_tpu import transfer, volume  # noqa: E402
-from vpt_tpu.renderers import make_scene, mcm  # noqa: E402
-
-
-# ---------------------------------------------------------------------------
-# GatherCurve
-# ---------------------------------------------------------------------------
-
-def test_gather_curve_reproduces_measured_points():
-    c = projection.MEASURED_V5E_CURVE
-    assert c.row_ns(1 << 16) == pytest.approx(4.1)
-    assert c.row_ns(1 << 21) == pytest.approx(5.7)
-    assert c.row_ns(1 << 24) == pytest.approx(13.1)
-
-
-def test_gather_curve_interpolates_and_extrapolates():
-    c = projection.MEASURED_V5E_CURVE
-    # linear in log2 between 2^21 (5.7) and 2^22 (12.0)
-    mid = c.row_ns(int(2 ** 21.5))
-    assert 5.7 < mid < 12.0
-    assert mid == pytest.approx((5.7 + 12.0) / 2, rel=1e-6)
-    # flat extrapolation beyond the measured range
-    assert c.row_ns(1 << 30) == pytest.approx(13.1)
-    assert c.row_ns(1 << 10) == pytest.approx(4.1)
-    # monotone non-decreasing over the whole range
-    xs = [c.row_ns(1 << k) for k in range(10, 30)]
-    assert all(b >= a - 1e-9 for a, b in zip(xs, xs[1:]))
-
-
-def test_gather_curve_speedup_scales_everything():
-    c = projection.GatherCurve(speedup=2.0)
-    base = projection.GatherCurve()
-    assert c.row_ns(1 << 20) == pytest.approx(base.row_ns(1 << 20) / 2)
-    assert c.event_ns(1 << 20) == pytest.approx(base.event_ns(1 << 20) / 2)
+from benchmarks import roofline  # noqa: E402
+from vpt_jax import transfer, volume  # noqa: E402
+from vpt_jax.renderers import make_scene, mcm  # noqa: E402
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +38,7 @@ def test_event_traffic_bytes_arithmetic(tracking_scene):
     assert t["carry_rw"] == pytest.approx(128.0)
     # tracking table rows are 8 bf16 lanes = 16 B
     assert t["volume_row"] == 16.0
-    assert t["tf_row"] == 0.0            # MXU path: FLOPs, not bytes
+    assert t["tf_row"] == 0.0            # one-hot path: FLOPs, not bytes
     assert t["tf_mxu_flops"] == 2 * 256 * 4
     assert t["total"] == pytest.approx(128.0 + 16.0)
 
@@ -104,7 +71,7 @@ def test_forward_roofline_fields(tracking_scene):
     assert out["hbm_fraction"] == pytest.approx(
         out["achieved_hbm_gbps"] / 800.0, rel=1e-2)
     # the gather bound binds long before the stream bound on these numbers
-    assert out["binding_resource"] == "gather-engine"
+    assert out["binding_resource"] == "gather"
     assert out["hbm_bound_events_per_s"] > out["gather_bound_events_per_s"]
 
 
@@ -119,90 +86,50 @@ def test_backward_roofline_fields():
 
 
 # ---------------------------------------------------------------------------
-# Pod projection
+# Published peaks and the single-layer byte bounds
 # ---------------------------------------------------------------------------
 
-def test_dp_replicated_is_linear():
-    out = projection.dp_replicated(8, 180e6, 1.5)
-    assert out["aggregate_events_per_s"] == pytest.approx(8 * 180e6)
-    assert out["aggregate_paths_per_s"] == pytest.approx(8 * 180e6 / 1.5)
-    assert out["efficiency"] == 1.0
-    assert out["collectives_per_event"] == 0
+def test_peaks_reject_unknown_device():
+    with pytest.raises(KeyError, match="no published peaks"):
+        roofline.peaks()
 
 
-def test_spatial_sharded_arithmetic():
-    curve = projection.GatherCurve()
-    out = projection.spatial_sharded(
-        8, 8, 1024 * 1024, (256, 256, 256), curve, projection.V5P,
-        mean_path_events=1.4)
-    # slab table: 32 + 1 halo planes of 256² rows
-    assert out["slab_rows"] == 33 * 256 * 256
-    # psum: ring all-reduce of 16 B over 8 chips on a 200 GB/s axis
-    expect_comm = 2 * 7 / 8 * 16 / 200.0
-    assert out["psum_ns_per_event"] == pytest.approx(expect_comm)
-    expect_agg = 1 * 1e9 / (curve.event_ns(33 * 256 * 256) + expect_comm)
-    assert out["aggregate_events_per_s"] == pytest.approx(expect_agg)
-    # efficiency compares against 8 chips at the FULL-table rate
-    full = 1e9 / curve.event_ns(256 ** 3)
-    assert out["efficiency"] == pytest.approx(expect_agg / (8 * full))
+@pytest.fixture
+def cpu_peaks(monkeypatch):
+    """Peaks for the CPU device and a stand-in for the GPU trace, so the
+    byte-bound plumbing runs here."""
+    import jax
+
+    kind = jax.devices()[0].device_kind
+    monkeypatch.setitem(roofline.PEAKS, kind,
+                        {"hbm_gbps": 100.0, "bf16_tflops": 1.0})
+    monkeypatch.setattr(roofline, "trace_busy",
+                        lambda call, iters: (1.5, 3.0))
 
 
-def test_spatial_sharded_rejects_bad_mesh():
-    with pytest.raises(ValueError):
-        projection.spatial_sharded(8, 3, 1024, (64, 64, 64),
-                                   projection.MEASURED_V5E_CURVE,
-                                   projection.V5P, 1.4)
+def test_tf_lookup_roofline_fields(cpu_peaks):
+    out = roofline.tf_lookup_roofline(res=16, events=2, iters=1)
+    assert out["lookups"] == 16 * 16 * 2
+    # 4 B read + 16 B write per lookup at 100 GB/s
+    assert out["bound_us"] == pytest.approx(512 * 20 / 100e3, abs=0.01)
+    for name in ("gather", "one_hot_f32", "one_hot_bf16"):
+        assert out[f"{name}_us"] > 0.0
+        assert out[f"{name}_device_us"] == 1.5
 
 
-def test_grad_allreduce_efficiency():
-    # 512³ f32 voxel grads, 8 chips, 0.32 s/step, 80% overlapped
-    out = projection.grad_allreduce_efficiency(
-        grad_bytes=512 ** 3 * 4, n_chips=8, step_time_s=0.32,
-        chip=projection.V5P, overlap_fraction=0.8)
-    expect_comm = 2 * 7 / 8 * 512 ** 3 * 4 / 200e9
-    assert out["comm_s_per_step"] == pytest.approx(expect_comm)
-    assert out["efficiency"] == pytest.approx(
-        0.32 / (0.32 + 0.2 * expect_comm))
-    assert out["efficiency"] > 0.99      # the config-4 overlap headroom
+def test_tonemap_roofline_fields(cpu_peaks):
+    out = roofline.tonemap_roofline(res=32, iters=1)
+    assert out["pixels"] == 32 * 32
+    assert out["bound_us"] == pytest.approx(32 * 32 * 32 / 100e3, abs=0.01)
+    assert out["measured_us"] > 0.0
+    assert out["measured_device_us"] == 1.5
 
 
-def test_v5p16_projection_meets_north_star_at_the_floor():
-    """The committed claim of docs/SCALING.md: the 128³ headline,
-    data-parallel over 8 v5p chips, meets the 1e9 rays/s aggregate even
-    if a v5p chip gathers NO faster than the measured v5e-lite."""
-    table = projection.v5p16_projection()
-    assert table["v5e-floor"]["dp128"]["aggregate_paths_per_s"] >= 1e9
-    assert table["v5e-floor"]["dp128"]["efficiency"] >= 0.85
-    # the hbm-scaled scenario clears it with margin at 256³ too
-    assert table["hbm-scaled"]["dp256"]["aggregate_paths_per_s"] >= 1e9
-    # spatial sharding is reported as the capacity mode it is — its
-    # throughput efficiency must NOT silently read as meeting the target
-    assert table["v5e-floor"]["spatial512"]["efficiency"] < 0.5
+def test_trace_busy_needs_a_gpu_plane():
+    import jax
+    import jax.numpy as jnp
 
-
-def test_resident_sharded_arithmetic():
-    """The r5 resident-photon column: parking efficiency follows the
-    geometric formula, the amortized tax divides by migrate_every, and
-    the measured-input configuration beats halo at the same capacity
-    while staying below replicated DP (the committed docs/SCALING.md
-    story)."""
-    kw = dict(n_chips=8, space=8, pixels=1024 * 1024,
-              dims=(256, 256, 256), curve=projection.MEASURED_V5E_CURVE,
-              chip=projection.V5P, mean_path_events=1.39)
-    r = projection.resident_sharded(**kw)
-    f, k = 0.14, 8
-    assert r["delivered_fraction"] == pytest.approx(
-        (1 - (1 - f) ** k) / (f * k))
-    # k=1 pays the full tax and delivers every event
-    r1 = projection.resident_sharded(**kw, migrate_every=1)
-    assert r1["delivered_fraction"] == pytest.approx(1.0)
-    assert r1["slot_ns"] > r["slot_ns"]
-    # the committed ordering: DP > resident > halo at 256^3
-    halo = projection.spatial_sharded(8, 8, 1024 * 1024, (256,) * 3,
-                                      projection.MEASURED_V5E_CURVE,
-                                      projection.V5P, 1.39)
-    dp = projection.dp_replicated(8, 79.9e6, 1.39)
-    assert halo["aggregate_events_per_s"] \
-        < r["aggregate_events_per_s"] < dp["aggregate_events_per_s"]
-    assert r["aggregate_events_per_s"] \
-        > 1.8 * halo["aggregate_events_per_s"]
+    fn = jax.jit(lambda x: x * 2.0)
+    x = jnp.ones((64,))
+    with pytest.raises(RuntimeError, match="no GPU device plane"):
+        roofline.trace_busy(lambda: fn(x), iters=2)

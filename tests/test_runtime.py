@@ -2,9 +2,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.runtime import CircleAnimator, OrbitCameraAnimator, RenderingContext
-from vpt_tpu.scene import default_camera
+from vpt_jax import transfer, volume
+from vpt_jax.runtime import CircleAnimator, OrbitCameraAnimator, RenderingContext
+from vpt_jax.scene import default_camera
 
 
 def make_ctx(renderer="eam", resolution=32):
@@ -95,7 +95,7 @@ def test_record_animation_video(tmp_path):
 
 
 def test_write_video_gif_fallback(tmp_path):
-    from vpt_tpu.io.video import write_video
+    from vpt_jax.io.video import write_video
 
     frames = [np.full((16, 16, 3), i * 60, np.uint8) for i in range(3)]
     written = write_video(tmp_path / "clip.gif", frames, fps=5)
@@ -118,7 +118,7 @@ def test_orbit_animator_distance_and_focus():
 
 def test_orbit_camera_looks_at_focus():
     """After any rotation the focus must project to the view center."""
-    from vpt_tpu import math3d as m4
+    from vpt_jax import math3d as m4
     cam = default_camera()
     orbit = OrbitCameraAnimator(cam)
     orbit.rotate(0.3, 0.2)
@@ -148,7 +148,7 @@ def test_profiler_counts():
 
 
 def test_viewer_server_endpoints():
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
     import urllib.request
 
     ctx = make_ctx("mip", resolution=24)
@@ -159,7 +159,7 @@ def test_viewer_server_endpoints():
         info = urllib.request.urlopen(f"{base}/info").read()
         assert b"renderers" in info
         page = urllib.request.urlopen(f"{base}/").read()
-        assert b"vpt_tpu viewer" in page
+        assert b"vpt_jax viewer" in page
         png = urllib.request.urlopen(
             f"{base}/frame?yaw=0.3&pitch=0.2&spp=1&renderer=mip"
             f"&tonemap=reinhard&reset=1").read()
@@ -179,7 +179,7 @@ def test_viewer_pose_change_keeps_renderer():
     rebuild; static-param changes (shader-recompile class) rebuild."""
     import json as _json
 
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
 
     ctx = make_ctx("eam", resolution=24)
     server = ViewerServer(ctx, port=0)
@@ -222,9 +222,9 @@ def test_viewer_info_schema_covers_all_params():
     import dataclasses
     import json as _json
 
-    from vpt_tpu.renderers import factory
-    from vpt_tpu.runtime.viewer import ViewerServer
-    from vpt_tpu.tonemap import TONE_MAPPERS
+    from vpt_jax.renderers import factory
+    from vpt_jax.runtime.viewer import ViewerServer
+    from vpt_jax.tonemap import TONE_MAPPERS
 
     ctx = make_ctx("mip", resolution=24)
     info = _json.loads(ViewerServer(ctx, port=0)._info())
@@ -241,9 +241,9 @@ def test_viewer_info_schema_covers_all_params():
 
 
 def test_photon_stats_telemetry():
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.renderers import make_scene, mcm
-    from vpt_tpu.runtime.profiler import photon_stats
+    from vpt_jax import transfer, volume
+    from vpt_jax.renderers import make_scene, mcm
+    from vpt_jax.runtime.profiler import photon_stats
 
     scene = make_scene(volume.sphere_volume(16),
                        transfer.gray_ramp(alpha_scale=0.8))
@@ -266,11 +266,11 @@ def test_orbax_sharded_checkpoint_roundtrip(tmp_path):
     import pytest
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    from vpt_tpu import transfer, volume
-    from vpt_tpu.parallel import make_mesh, sharded_scene
-    from vpt_tpu.parallel.shard import place_state, shard_render_frame
-    from vpt_tpu.renderers import make_scene, mcm
-    from vpt_tpu.runtime import checkpoint
+    from vpt_jax import transfer, volume
+    from vpt_jax.parallel import make_mesh, sharded_scene
+    from vpt_jax.parallel.shard import place_state, shard_render_frame
+    from vpt_jax.renderers import make_scene, mcm
+    from vpt_jax.runtime import checkpoint
 
     scene = make_scene(volume.sphere_volume(16),
                        transfer.gray_ramp(alpha_scale=0.8))
@@ -309,7 +309,7 @@ def test_viewer_tf_editor_endpoints():
     import json as json_mod
     import urllib.request
 
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
 
     ctx = make_ctx("mip", resolution=24)
     before = np.asarray(ctx.transfer_texture).copy()
@@ -341,7 +341,7 @@ def test_viewer_tf_editor_endpoints():
 
 
 def test_viewer_resolution_and_filter_controls():
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
 
     ctx = make_ctx("mip", resolution=24)
     server = ViewerServer(ctx, port=0)
@@ -357,7 +357,7 @@ def test_viewer_resolution_and_filter_controls():
 
 
 def test_viewer_volume_trs_controls():
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
 
     ctx = make_ctx("mip", resolution=16)
     server = ViewerServer(ctx, port=0)
@@ -381,7 +381,7 @@ def test_viewer_volume_trs_controls():
 
 
 def test_viewer_focus_pan_moves_camera():
-    from vpt_tpu.runtime.viewer import ViewerServer
+    from vpt_jax.runtime.viewer import ViewerServer
 
     ctx = make_ctx("mip", resolution=16)
     server = ViewerServer(ctx, port=0)
@@ -398,8 +398,8 @@ def test_orbit_animator_fly_and_roll():
     """WASD fly translates the focus along the view basis
     (OrbitCameraAnimator.js:130-160); roll spins the camera about the
     view axis without moving eye or focus."""
-    from vpt_tpu.runtime.animators import OrbitCameraAnimator
-    from vpt_tpu.scene import default_camera
+    from vpt_jax.runtime.animators import OrbitCameraAnimator
+    from vpt_jax.scene import default_camera
 
     cam = default_camera()
     orbit = OrbitCameraAnimator(cam)

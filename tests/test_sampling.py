@@ -1,9 +1,10 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-from vpt_tpu import rng, sampling
-from vpt_tpu import volume as vol
+from vpt_jax import rng, sampling
+from vpt_jax import volume as vol
 
 
 def test_intersect_cube_through_center():
@@ -150,7 +151,7 @@ def test_hg_anisotropy_biases_cosine():
 
 def test_value_gradient_matches_analytic():
     # linear field along x: alpha == x  (gray_ramp TF alpha = value)
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     n = 32
     x, _, _ = vol.normalized_grid(n, n, n)
     v = jnp.asarray(x[..., None].astype(np.float32))
@@ -216,7 +217,7 @@ def test_scatter_fold_log2_policy():
 
 
 def test_packed_texture_matches_slow_path():
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     t = transfer.rasterize(transfer.TransferFunctionBumps.default(), 32, 32)
     packed = sampling.pack_corner_texture2d(t)
     rng_np = np.random.default_rng(1)
@@ -230,7 +231,7 @@ def test_mxu_transfer_matches_bilinear_lookup():
     """The one-hot-matmul 1D TF path must match the 2D bilinear lookup at
     uv=(value, 0).  f32 table: near-exact; bf16 table: ~8-bit fraction
     precision (the opt-in fast-path contract)."""
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     t = transfer.rasterize(transfer.TransferFunctionBumps.default(), 64, 64)
     rng_np = np.random.default_rng(3)
     value = jnp.asarray(rng_np.uniform(-0.1, 1.1, (4000,)).astype(np.float32))
@@ -250,7 +251,7 @@ def test_mxu_transfer_chunked_path_matches(monkeypatch):
     """Batches above _MXU_CHUNK_ROWS loop the matmul over row chunks
     (HBM-pressure cap for the 8·H·W march batches); the loop must be
     value-identical to the single matmul."""
-    from vpt_tpu import transfer
+    from vpt_jax import transfer
     t = transfer.rasterize(transfer.TransferFunctionBumps.default(), 64, 64)
     tab = sampling.pack_mxu_transfer(t, jnp.float32)
     rng_np = np.random.default_rng(7)
@@ -265,8 +266,8 @@ def test_mxu_transfer_chunked_path_matches(monkeypatch):
 def test_scene_tf_mxu_renders_close_to_gather_path():
     """An mcm frame on a tf_mxu scene stays close to the gather-path frame
     (identical RNG stream; only the TF lookup numerics differ)."""
-    from vpt_tpu import transfer
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax import transfer
+    from vpt_jax.renderers import make_scene, mcm
     v = vol.sphere_volume(16)
     tf = transfer.gray_ramp(alpha_scale=0.8)
     sc_mxu = make_scene(v, tf, tf_mxu=True)
@@ -286,8 +287,8 @@ def test_scene_fast_path_matches_unpacked_render():
     outcomes (samples, bounces) exactly, float state to float32 rounding
     (XLA fuses the two lerp pipelines differently — fma vs mul+add — so
     1-ulp differences are expected)."""
-    from vpt_tpu import transfer
-    from vpt_tpu.renderers import make_scene, mcm
+    from vpt_jax import transfer
+    from vpt_jax.renderers import make_scene, mcm
     v = vol.sphere_volume(16)
     tf = transfer.gray_ramp(alpha_scale=0.8)
     sc_fast = make_scene(v, tf, pack=True)
@@ -305,8 +306,8 @@ def test_scene_fast_path_matches_unpacked_render():
 
 
 def test_make_scene_tf_srgb_applies_gl_semantics():
-    from vpt_tpu import transfer as tf_mod
-    from vpt_tpu.renderers import make_scene
+    from vpt_jax import transfer as tf_mod
+    from vpt_jax.renderers import make_scene
     v = vol.sphere_volume(8)
     tf = tf_mod.gray_ramp(alpha_scale=1.0)
     sc = make_scene(v, tf, tf_srgb=True, pack=False)
@@ -315,3 +316,37 @@ def test_make_scene_tf_srgb_applies_gl_semantics():
     # alpha stays linear (only quantized); colors are decoded (smaller)
     assert np.all(np.asarray(sc.transfer[..., :3])
                   <= np.asarray(sc.transfer[..., 3:4]) + 1e-6)
+
+
+@pytest.mark.parametrize("width", [256, 200], ids=["w256", "w200"])
+def test_mxu_transfer_f32_matches_bilinear_at_y0(width):
+    """A float32 one-hot table reproduces the bilinear y = 0 lookup (GL
+    clamp included) for a TF width that is a multiple of 128 and one that
+    is not."""
+    t = jnp.asarray(np.random.default_rng(width)
+                    .uniform(0, 1, (2, width, 4)).astype(np.float32))
+    value = jnp.asarray(np.random.default_rng(1)
+                        .uniform(-0.1, 1.1, (16, 128)).astype(np.float32))
+    uv = jnp.stack([value, jnp.zeros_like(value)], axis=-1)
+    oracle = np.asarray(sampling.sample_texture2d(t, uv))
+    got = np.asarray(sampling.sample_transfer_1d_mxu(
+        sampling.pack_mxu_transfer(t, jnp.float32), value))
+    assert got.shape == (16, 128, 4)
+    assert np.allclose(got, oracle, atol=1e-6)
+
+
+def test_mxu_transfer_in_march_chunks_matches_gather():
+    """The marchers sample chunk-of-slices batches (4-D positions in
+    renderers/_march.py); a float32 one-hot TF there renders the same
+    EAM frame as the bilinear gather."""
+    from vpt_jax import transfer
+    from vpt_jax.renderers import eam, make_scene
+    v = vol.sphere_volume(16)
+    tf = transfer.gray_ramp(alpha_scale=0.8)
+    sc_mxu = make_scene(v, tf, tf_mxu=True)
+    assert sc_mxu.transfer_mxu.dtype == jnp.float32
+    sc_ref = make_scene(v, tf)
+    params = eam.Params(slices=16, random=False)
+    a = eam.generate(sc_mxu, params, jnp.float32(0.0), 16, 16)
+    b = eam.generate(sc_ref, params, jnp.float32(0.0), 16, 16)
+    assert np.allclose(np.asarray(a), np.asarray(b), atol=1e-6)

@@ -1,6 +1,6 @@
-"""Super-voxel majorant tracking (vpt_tpu/skipgrid.py) — correctness.
+"""Super-voxel majorant tracking (vpt_jax/skipgrid.py) — correctness.
 
-The majorant grid is a TPU-native acceleration with no reference
+The majorant grid is an acceleration with no reference
 counterpart; its contract is: (a) per-cell majorants conservatively bound
 the TF alpha anywhere in the cell's trilinear support (non-monotone TFs
 included), (b) boundary hops never overshoot the majorant's validity, and
@@ -10,8 +10,8 @@ is the same null-collision estimator with a rescaled (local) majorant."""
 import jax.numpy as jnp
 import numpy as np
 
-from vpt_tpu import skipgrid, transfer, volume
-from vpt_tpu.renderers import make_renderer, make_scene
+from vpt_jax import skipgrid, transfer, volume
+from vpt_jax.renderers import make_renderer, make_scene
 
 
 def _sphere_scene(n=32, majorant_grid=None, alpha_scale=1.0):
@@ -115,7 +115,7 @@ def test_flight_step_bounds_stay_in_cell():
 def test_majorant_mode_converges_to_exact_image():
     """The local-majorant machine must converge to the exact machine's
     image (different RNG consumption -> compare converged means)."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     n = 12
     params = mcm.Params(extinction=30.0, anisotropy=0.0, steps=16)
@@ -133,7 +133,7 @@ def test_majorant_homogeneous_analytic():
     """Homogeneous absorbing medium: with maxalpha == alpha everywhere the
     local machine has no null collisions at all; the converged center
     pixel still estimates exp(-sigma*L) (cf. test_mcm_homogeneous_unbiased)."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     n = 9
     vol = volume.Volume(jnp.ones((8, 8, 8, 1), jnp.float32))
@@ -152,7 +152,7 @@ def test_majorant_homogeneous_analytic():
 def test_majorant_mode_makes_progress_faster():
     """On a sparse scene the local-majorant machine completes more paths
     per iteration budget (the whole point)."""
-    from vpt_tpu.renderers import mcm
+    from vpt_jax.renderers import mcm
 
     # a small dense ball in a mostly-empty cube (the CT-like regime)
     g = (np.arange(32) + 0.5) / 32 - 0.5

@@ -3,7 +3,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import tonemap
+from vpt_jax import tonemap
 
 
 ALL = sorted(tonemap.TONE_MAPPERS)

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from vpt_tpu import colorspaces, utils
-from vpt_tpu.tools import packer
+from vpt_jax import colorspaces, utils
+from vpt_jax.tools import packer
 
 
 def test_hex_rgb_roundtrip():
@@ -128,7 +128,7 @@ def test_pack_concat_and_each(tmp_path):
 
 
 def test_cli_info_runs(capsys):
-    from vpt_tpu import cli
+    from vpt_jax import cli
 
     cli.main(["info"])
     out = capsys.readouterr().out
@@ -136,7 +136,7 @@ def test_cli_info_runs(capsys):
 
 
 def test_cli_render_end_to_end(tmp_path):
-    from vpt_tpu import cli
+    from vpt_jax import cli
 
     out = tmp_path / "r.png"
     cli.main(["render", "--volume", "sphere:16", "--renderer", "mip",
@@ -148,12 +148,12 @@ def test_cli_render_end_to_end(tmp_path):
 def test_cli_fit_multiview(tmp_path):
     import math
 
-    from vpt_tpu import cli, transfer, volume
-    from vpt_tpu.io.image import write_png
-    from vpt_tpu.renderers import eam
-    from vpt_tpu.runtime.animators import OrbitCameraAnimator
-    from vpt_tpu.scene import CameraState, default_camera
-    from vpt_tpu.train import render_eam
+    from vpt_jax import cli, transfer, volume
+    from vpt_jax.io.image import write_png
+    from vpt_jax.renderers import eam
+    from vpt_jax.runtime.animators import OrbitCameraAnimator
+    from vpt_jax.scene import CameraState, default_camera
+    from vpt_jax.train import render_eam
 
     # two orbit views of a tiny sphere as fit targets
     tf = transfer.gray_ramp(alpha_scale=1.0)
@@ -187,8 +187,8 @@ def test_cli_fit_multiview(tmp_path):
                   "--grid", "8", "--steps", "1", "-o", str(out)])
 
     # --inpaint completes the fit's occluded set post-hoc (cli wires
-    # vpt_tpu.inpaint.complete_occluded; committed forensics in
-    # BENCH_NOTES.md "Config-3 end-to-end with occlusion completion")
+    # vpt_jax.inpaint.complete_occluded; forensics in
+    # docs/ARCHITECTURE.md "Occlusion completion")
     out2 = tmp_path / "vol_inpaint"
     cli.main(["fit", "--target", *paths, "--view-yaw", "0", "180",
               "--grid", "8", "--steps", "3", "--eam-slices", "16",
@@ -199,8 +199,8 @@ def test_cli_fit_multiview(tmp_path):
 
 
 def test_cli_fit_iso_depth(tmp_path):
-    from vpt_tpu import cli, transfer, volume
-    from vpt_tpu.renderers import diff_iso, make_scene
+    from vpt_jax import cli, transfer, volume
+    from vpt_jax.renderers import diff_iso, make_scene
 
     truth = volume.sphere_volume(8)
     tf = transfer.gray_ramp(alpha_scale=1.0)
@@ -223,7 +223,7 @@ def test_cli_fit_iso_depth(tmp_path):
 
 
 def test_cli_info_volume_rejects_non_archives(tmp_path):
-    from vpt_tpu import cli
+    from vpt_jax import cli
 
     with pytest.raises(SystemExit):
         cli.main(["info", "--volume", str(tmp_path / "vol.raw")])
@@ -232,7 +232,7 @@ def test_cli_info_volume_rejects_non_archives(tmp_path):
 
 
 def test_distributed_single_process():
-    from vpt_tpu.parallel import distributed
+    from vpt_jax.parallel import distributed
 
     assert distributed.initialize() is False  # no coordinator configured
     assert "devices" in distributed.topology_summary()

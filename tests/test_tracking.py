@@ -1,6 +1,6 @@
 """Cheb-skip empty-space tracking (skipgrid.pack_tracking_volume) — the
 voxel-resolution empty-space acceleration that rides the event loop's
-existing corner gather (VERDICT r2 #1).
+existing corner gather.
 
 Contract under test:
 - empty cells (TF alpha exactly 0 over the cell's whole trilinear value
@@ -20,8 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from vpt_tpu import sampling, skipgrid, transfer, volume
-from vpt_tpu.renderers import make_renderer, make_scene, mcm
+from vpt_jax import sampling, skipgrid, transfer, volume
+from vpt_jax.renderers import make_renderer, make_scene, mcm
 
 
 def _sparse_ball(n=32, r=0.15, value=0.9):
@@ -193,25 +193,6 @@ def test_gather_packed_corners_validates_fold():
     assert out.shape == (5, 8, 1)
 
 
-def test_bench_baseline_table_is_consistent():
-    """The --check regression gate's committed table must parse and name
-    only configs bench.py knows how to run (VERDICT r2 #8)."""
-    import json
-    import os
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    import bench
-
-    with open(bench.BASELINE_TABLE) as f:
-        table = json.load(f)
-    assert 0.0 < table["variance_band"] < 0.5
-    for name, row in table["configs"].items():
-        assert name in bench.CONFIGS, name
-        assert row["events_per_s"] > 0 and row["paths_per_s"] > 0
-
-
 def test_mcs_no_empty_cells_matches_exact():
     """MCS with a tracking table but no empty cells runs the same draws
     and branches (hop == 0 always; the samplers are bitwise equal —
@@ -219,7 +200,7 @@ def test_mcs_no_empty_cells_matches_exact():
     context, which reassociates float products by ~1 ulp (the same
     compile-context effect documented for shard_map in halo.py) — so the
     frame comparison is at 1-ulp tolerance rather than bitwise."""
-    from vpt_tpu.renderers import mcs
+    from vpt_jax.renderers import mcs
 
     tf = np.zeros((2, 256, 4), np.float32)
     tf[..., :3] = 0.7
@@ -242,7 +223,7 @@ def test_mcs_no_empty_cells_matches_exact():
 
 
 def test_mcs_tracking_converges_to_exact_image():
-    from vpt_tpu.renderers import mcs
+    from vpt_jax.renderers import mcs
 
     n = 12
     params = mcs.Params(extinction=40.0)
@@ -298,7 +279,7 @@ def test_explicit_tracking_requests_do_not_silently_degrade():
 def test_tracking_respects_volume_filter():
     """Tracking tables implement the linear filter only: nearest-filter
     volumes must not silently render through trilinear skip tables."""
-    from vpt_tpu.volume import Volume
+    from vpt_jax.volume import Volume
 
     tf = _zero_floor_tf()
     vol = Volume(_sparse_ball(16), "nearest")
@@ -329,29 +310,3 @@ def test_auto_policy_declines_before_distance_transform(monkeypatch):
     assert not called                          # declined without the DT
     sc = make_scene(_sparse_ball(16), _zero_floor_tf(), tracking="auto")
     assert sc.tracking_packed is not None and called
-
-
-def test_bench_check_flags_regressions(monkeypatch, capsys):
-    """The --check gate must pass values inside the variance band and
-    fail (non-zero exit) on drops below baseline*(1-band) — exercised
-    with a stubbed measurement so no TPU run is needed."""
-    import os
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    sys.path.insert(0, root)
-    import bench
-
-    def fake_run(name, scale=1.0):
-        base = __import__("json").load(
-            open(bench.BASELINE_TABLE))["configs"][name]
-        return {"config": name,
-                "events_per_s": base["events_per_s"] * scale,
-                "paths_per_s": base["paths_per_s"] * scale,
-                "mean_path_events": 1.4}
-
-    monkeypatch.setattr(bench, "run_config", lambda n: fake_run(n, 0.9))
-    assert bench.check_mode() == 0          # -10%: inside the 15% band
-    monkeypatch.setattr(bench, "run_config", lambda n: fake_run(n, 0.8))
-    assert bench.check_mode() == 1          # -20%: regression
-    assert "REGRESSION" in capsys.readouterr().err

@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from vpt_tpu import transfer, volume
-from vpt_tpu.renderers import eam
-from vpt_tpu.scene import CameraState, default_camera
-from vpt_tpu.train import fit, render_eam
+from vpt_jax import transfer, volume
+from vpt_jax.renderers import eam
+from vpt_jax.scene import CameraState, default_camera
+from vpt_jax.train import fit, render_eam
 
 
 def _mats():
@@ -90,8 +90,8 @@ def test_fit_recovers_volume_loss_decreases():
 
 def test_multiview_fit_beats_single_view():
     """Fitting from 3 orbit views reduces loss on all views."""
-    from vpt_tpu.runtime.animators import OrbitCameraAnimator
-    from vpt_tpu.scene import default_camera
+    from vpt_jax.runtime.animators import OrbitCameraAnimator
+    from vpt_jax.scene import default_camera
 
     tf = transfer.gray_ramp(alpha_scale=1.0)
     params = eam.Params(slices=12, random=False)
@@ -118,8 +118,8 @@ def test_multiview_fit_beats_single_view():
 def test_fit_mc_recovers_tf_alpha():
     """MC inverse rendering (BASELINE config 3 structure): recover the TF
     opacity of a homogeneous volume from an MCM-rendered target."""
-    from vpt_tpu.renderers import diff_mc, make_scene, mcm
-    from vpt_tpu.train import fit_mc
+    from vpt_jax.renderers import diff_mc, make_scene, mcm
+    from vpt_jax.train import fit_mc
 
     vol = volume.Volume(jnp.ones((4, 4, 4, 1), jnp.float32))
     target_alpha = 0.45
@@ -135,7 +135,7 @@ def test_fit_mc_recovers_tf_alpha():
     assert losses[-1] < losses[0] * 0.3
     # the homogeneous volume samples the TF only at (value=1, y=0): compare
     # the fitted opacity where the renderer actually reads it
-    from vpt_tpu import sampling
+    from vpt_jax import sampling
 
     got = float(sampling.sample_texture2d(
         tf_fit, jnp.array([[1.0, 0.0]]))[0, 3])
